@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Multi-host SPMD PPO training (pod-slice pattern).
+"""Multi-host SPMD PPO training.
 
-Run ONE copy of this script per host of a TPU pod slice (the standard
-jax.distributed launch — e.g. via `gcloud compute tpus tpu-vm ssh --worker=all`).
-Every process executes the same program; env instances shard over all chips
-of the slice, learner params replicate, and XLA all-reduces gradients over
-ICI. On a single host this degrades gracefully to the local mesh.
+Run ONE copy of this script per host (the standard jax.distributed launch:
+give each process --coordinator, --num-processes and --process-id). Every
+process executes the same program; env instances shard over all devices,
+learner params replicate, and XLA inserts the collectives. Run without
+--coordinator it uses the local devices of one host.
 
     python examples/multihost_train.py --num-envs-per-chip 4096
 """

@@ -26,10 +26,10 @@ def main():
     ap.add_argument("--reps", type=int, default=16)
     args = ap.parse_args()
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-    import numpy as np
-
     import gym_fishing_tpu as gft
+    from gym_fishing_tpu import device
+
+    device.setup_compile_cache()
     from gym_fishing_tpu.agents import RPPOConfig, RecurrentPPOPolicy, escapement, rppo_train
     from gym_fishing_tpu.agents.ppo import PPOConfig, PPOPolicy, train
     from gym_fishing_tpu.analysis import simulate_mdp

@@ -1,4 +1,4 @@
-"""gym_fishing_tpu — a TPU-native rebuild of boettiger-lab/gym_fishing.
+"""gym_fishing_tpu — an accelerator-native rebuild of boettiger-lab/gym_fishing.
 
 A vectorized, mesh-shardable fisheries-management environment engine:
 pure-JAX ``step(params, state, action, key)`` dynamics that jit+vmap to

@@ -24,15 +24,16 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import optax
-from flax.training.train_state import TrainState
 
 from gym_fishing_tpu.agents.ppo import (
-    ActorCritic,
     PPOPolicy,
     action_logp_entropy,
     collect_rollout,
     compute_gae,
+    episode_metrics,
+    make_network,
 )
+from gym_fishing_tpu.agents.train_state import TrainState
 from gym_fishing_tpu.batch import batched_reset
 from gym_fishing_tpu.core.env import Env
 from gym_fishing_tpu.core.types import EnvParams
@@ -56,14 +57,7 @@ class A2CConfig:
 def make_a2c_state(
     env: Env, cfg: A2CConfig, key: jax.Array, params: Optional[EnvParams] = None
 ) -> TrainState:
-    continuous = env.config.scheme == "continuous"
-    action_dim = 1 if continuous else env.config.n_actions
-    net = ActorCritic(
-        action_dim=action_dim,
-        continuous=continuous,
-        hidden=cfg.hidden,
-        compute_dtype=jnp.dtype(cfg.compute_dtype),
-    )
+    net = make_network(env, cfg)
     obs_dim = env.observation_space.shape[0]
     net_params = net.init(key, jnp.zeros((1, obs_dim), jnp.float32))
     # sb3 A2C uses TF-style RMSProp (alpha=0.99, eps=1e-5, no momentum)
@@ -120,21 +114,7 @@ def a2c_train_step(
     )
     (_, metrics), grads = grad_fn(ts.params)
     ts = ts.apply_gradients(grads=grads)
-
-    done_f = traj.done.astype(jnp.float32)
-    n_done = done_f.sum()
-    metrics["episode_return"] = jnp.where(
-        n_done > 0,
-        (traj.episode_return * done_f).sum() / jnp.maximum(n_done, 1),
-        jnp.nan,
-    )
-    metrics["episode_length"] = jnp.where(
-        n_done > 0,
-        (traj.episode_length.astype(jnp.float32) * done_f).sum()
-        / jnp.maximum(n_done, 1),
-        jnp.nan,
-    )
-    metrics["mean_reward"] = traj.reward.mean()
+    metrics.update(episode_metrics(traj))
     return ts, bstate, metrics
 
 

@@ -2,7 +2,7 @@
 
 The reference trains its discrete envs with external value-based learners
 (stable-baselines3 DQN in the repo's README/notebook usage; reference:
-gym_fishing README, reconstructed). This is the in-framework TPU-native
+gym_fishing README, reconstructed). This is the in-framework on-device
 equivalent: the whole interact-store-sample-update cycle is one jitted
 program over the batched env engine — vectorized epsilon-greedy exploration
 across ``num_envs`` lockstep instances, the device-resident replay buffer
@@ -23,13 +23,13 @@ import dataclasses
 from functools import partial
 from typing import Any, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
-from flax.training.train_state import TrainState
 
+from gym_fishing_tpu.agents._flax import nn
 from gym_fishing_tpu.agents.sac import ReplayBuffer, buffer_add, buffer_init, buffer_sample
+from gym_fishing_tpu.agents.train_state import TrainState
 from gym_fishing_tpu.batch import batched_reset, batched_step
 from gym_fishing_tpu.core.env import Env
 from gym_fishing_tpu.core.types import EnvParams

@@ -1,10 +1,10 @@
-"""OpenAI-style Evolution Strategies learner — a TPU-shaped black-box trainer.
+"""OpenAI-style Evolution Strategies learner — a batched black-box trainer.
 
 No reference counterpart (the reference trains only via external sb3,
 SURVEY.md §3.5); this learner exists because ES is the algorithm the
-vectorized TPU engine is *best* shaped for: a population of antithetic
+vectorized engine is *best* shaped for: a population of antithetic
 parameter perturbations, each evaluated by full-episode rollouts, is one
-giant `[pop, envs_per_member]` vmap — pure MXU-batched matmuls and fused env
+giant `[pop, envs_per_member]` vmap — pure batched matmuls and fused env
 steps, zero sample-correlation machinery, one gradient-free update per
 generation (Salimans et al. 2017, "Evolution Strategies as a Scalable
 Alternative to Reinforcement Learning"; PAPERS.md).
@@ -30,13 +30,13 @@ import dataclasses
 from functools import partial
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.training.train_state import TrainState
 
+from gym_fishing_tpu.agents._flax import nn
+from gym_fishing_tpu.agents.train_state import TrainState
 from gym_fishing_tpu.batch import batched_reset, batched_step
 from gym_fishing_tpu.core.env import Env
 from gym_fishing_tpu.core.types import EnvParams

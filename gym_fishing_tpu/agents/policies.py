@@ -6,7 +6,7 @@ mortality; harvest r*K/4 at equilibrium for logistic) and `escapement(env)`
 `.predict(obs, state=None, deterministic=True) -> (action, state)` duck-types
 a stable-baselines3 model (reconstructed — SURVEY.md §2.1 Lx).
 
-TPU-native twist: each policy is a *pure, jit/vmap-safe function* of the
+On-device twist: each policy is a *pure, jit/vmap-safe function* of the
 observation (``policy.act``), generalized beyond logistic via a numeric
 maximum-sustainable-yield computation on the growth curve; the object wrapper
 only adds numpy I/O. For the 3-action relative decode the sb3 "recurrent

@@ -4,14 +4,15 @@ The reference trains via external stable-baselines3, crossing the
 Python<->torch<->NumPy boundary every step (reference: README usage +
 SURVEY.md §3.5; reconstructed). Here the whole iteration — rollout
 (policy forward + env step + trajectory buffers), GAE, and the clipped PPO
-update over minibatch epochs — is a single jitted function. On a mesh, env
-instances shard over the "envs" axis while parameters stay replicated; the
-gradient all-reduce is the only cross-device communication, inserted by XLA
-over ICI (BASELINE.json north star: no host round-trips in the rollout loop).
+update over minibatch epochs — is a single jitted function built from three
+pieces (``collect_rollout``, ``build_batch``, ``update``), with no host
+round-trips (BASELINE.json north star). On a mesh, env instances shard over
+the "envs" axis while parameters stay replicated. XLA then runs the rollout
+sharded, all-gathers the trajectory for the global shuffle, and runs the
+minibatch update on every device.
 
-MXU notes: the actor-critic MLP is deliberately batched [num_envs, obs] x
-[obs, hidden] so the matmuls tile onto the MXU; hidden sizes default to
-multiples of 128-friendly shapes.
+The actor-critic is a plain-JAX MLP (``ActorCritic``): two tanh layers per
+head, batched as [num_envs, obs] x [obs, hidden] matmuls.
 """
 
 from __future__ import annotations
@@ -20,16 +21,20 @@ import dataclasses
 from functools import partial
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.training.train_state import TrainState
 
+from gym_fishing_tpu.agents.train_state import TrainState
 from gym_fishing_tpu.batch import BatchState, batched_reset, batched_step
 from gym_fishing_tpu.core.env import Env
 from gym_fishing_tpu.core.types import EnvParams
+
+# Adam as stable-baselines3's PPO configures it (eps=1e-5, not optax's 1e-8).
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,101 +53,90 @@ class PPOConfig:
     hidden: int = 64
     anneal_lr: bool = False
     total_iterations: int = 64    # used only for lr annealing
-    # 'bfloat16' runs the MLP matmuls in bf16 (f32 params, f32 heads/loss) —
-    # 2x MXU rate + half the activation HBM traffic on TPU.
+    # 'bfloat16' runs the hidden-layer matmuls in bf16 (f32 params, f32
+    # heads/loss). Speed on the H100: not measured.
     compute_dtype: str = "float32"
-    # fused_update=True runs each minibatch gradient through the Pallas
-    # fused-update kernel (kernels/ppo_update_kernel.py): activations stay in
-    # VMEM, HBM traffic per epoch drops to one read of the packed buffer.
-    # Supports both action heads (Gaussian for the continuous scheme,
-    # categorical for the discrete decode schemes); float32 compute.
-    fused_update: bool = False
-    # fused_rollout=True additionally replaces collect_rollout + GAE +
-    # packing with the Pallas policy-rollout kernel
-    # (kernels/policy_rollout_kernel.py): policy forward, action sampling
-    # (Gaussian or categorical by scheme), env dynamics, auto-reset and the
-    # GAE reverse pass all run in VMEM and emit the packed sample matrix
-    # directly. Requires fused_update and scalar obs (no ObsStack).
-    # Observation noise (sigma_m > 0) is supported as long as sigma_m is a
-    # static float in the params (a traced sigma_m raises loudly in
-    # agents/ppo_fused.py). RNG is the kernel's on-chip PRNG, so
-    # trajectories match the XLA path statistically, not bitwise.
-    fused_rollout: bool = False
-    # Fused-rollout chain-shortening (VERDICT r4 #3 ablations, DEFAULT ON
-    # since round 5): rollout_pregen_noise pre-generates ALL per-step random
-    # draws in one vectorized kernel pre-pass (noise is state-independent),
-    # replacing the per-step PRNG+Box-Muller in the latency-bound dependent
-    # loop with VMEM loads; rollout_fold_obs folds the obs affine map
-    # (x/K - 1) into the policy input layer. Measured together: -0.96
-    # ms/iter (-5.4%) at the 4x8 default, paired interleaved windows;
-    # semantics preserved (law-identical RNG, ~1-ulp f32 for fold_obs; z=0
-    # parity on all schemes; per-checkpoint fused-vs-XLA agreement gate
-    # PASS on chip with both on, max_gap 0.0114). BENCH_NOTES "Round 5c".
-    rollout_pregen_noise: bool = True
-    rollout_fold_obs: bool = True
-    # rollout_vector_gae replaces the kernel's T-step sequential GAE reverse
-    # pass with a log-depth doubling scan over the [T, E] VMEM planes (the
-    # recurrence is an associative composition of affine maps) — ceil(log2 T)
-    # vectorized rounds instead of T latency-bound steps. Same math modulo
-    # f32 reassociation (~1 ulp); z=0 parity tested. Default per the
-    # round-5 measurement (BENCH_NOTES "Round 5e").
-    rollout_vector_gae: bool = False
-    # fused_adam=True (requires fused_update; single-device)
-    # moves clip-by-global-norm + Adam INSIDE the update kernel: each
-    # minibatch is one pallas launch computing gradient + optimizer step on
-    # the VMEM-resident merged buffers, and optax state is read/written once
-    # per train step instead of per minibatch. Bit-compatible with the optax
-    # chain to f32 tolerance (tests/test_update_kernel.py). The sharded
-    # shard_map path ignores this flag (it must pmean gradients before the
-    # update, so it keeps optax).
-    fused_adam: bool = False
-    # 'exact': fresh jax.random.permutation per epoch (a full sort — measured
-    # ~10 ms at N=2^21 on v5e). 'affine': index bijection i -> (a*i+b) mod N
-    # with random odd a (N a power of two), computed on the fly — an
-    # O(1)-state shuffle whose minibatches are strided samples across the
-    # (time, env) buffer; envs are iid so the mixing loss is negligible.
+    # 'exact': fresh jax.random.permutation per epoch (a full sort).
+    # 'affine': index bijection i -> (a*i+b) mod N with random odd a (N a
+    # power of two), computed on the fly — an O(1)-state shuffle whose
+    # minibatches are strided samples across the (time, env) buffer; envs
+    # are iid so the mixing loss is negligible.
     shuffle: str = "exact"
 
 
-class ActorCritic(nn.Module):
-    """Shared-nothing actor + critic MLPs (sb3 MlpPolicy shape)."""
+# ----------------------------------------------------------------- network
+def _dense_init(key, n_in: int, n_out: int, scale: float):
+    return {
+        "kernel": jax.nn.initializers.orthogonal(scale)(
+            key, (n_in, n_out), jnp.float32
+        ),
+        "bias": jnp.zeros((n_out,), jnp.float32),
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class ActorCritic:
+    """Shared-nothing actor + critic MLPs (sb3 MlpPolicy shape).
+
+    Parameters live in ``{"params": {name: {"kernel", "bias"}, "log_std"}}``
+    with layers ``pi_d1, pi_d2, v_d1, v_d2, v_out`` and the head ``pi_mean``
+    (continuous, plus a state-independent ``log_std``) or ``pi_logits``
+    (discrete). Orthogonal init with gains sqrt(2) (hidden), 1.0 (value)
+    and 0.01 (policy head); zero biases. Hidden layers compute in
+    ``compute_dtype``; the heads stay float32, because action means, values
+    and logits feed log-probs and the loss, where bf16 resolution would bite.
+
+    ``precision`` of the matmuls: "highest" is true float32 on every backend
+    (a GPU and a CPU run of one iteration agree to rounding). "default" lets
+    XLA:GPU use TF32, which at hidden 64 saved no time on an H100 (41.8 ms
+    per BASELINE config-5 iteration either way) and moved the result.
+    """
 
     action_dim: int
     continuous: bool
     hidden: int = 64
     compute_dtype: Any = jnp.float32
+    precision: str = "highest"
 
-    @nn.compact
-    def __call__(self, obs):
-        cdt = self.compute_dtype
+    def _layers(self, obs_dim: int):
+        h, s2 = self.hidden, float(np.sqrt(2.0))
+        head = "pi_mean" if self.continuous else "pi_logits"
+        return (
+            ("pi_d1", obs_dim, h, s2), ("pi_d2", h, h, s2),
+            ("v_d1", obs_dim, h, s2), ("v_d2", h, h, s2),
+            ("v_out", h, 1, 1.0), (head, h, self.action_dim, 0.01),
+        )
+
+    def init(self, key, obs):
+        layers = self._layers(obs.shape[-1])
+        keys = jax.random.split(key, len(layers))
+        params = {
+            name: _dense_init(k, n_in, n_out, scale)
+            for k, (name, n_in, n_out, scale) in zip(keys, layers)
+        }
+        if self.continuous:
+            params["log_std"] = jnp.zeros((self.action_dim,), jnp.float32)
+        return {"params": params}
+
+    def apply(self, variables, obs):
+        p = variables["params"]
+
+        def dense(x, name, dtype):
+            w = p[name]
+            y = jnp.dot(x.astype(dtype), w["kernel"].astype(dtype),
+                        precision=self.precision)
+            return y + w["bias"].astype(dtype)
 
         def mlp(x, name):
-            x = nn.Dense(self.hidden, name=f"{name}_d1", dtype=cdt,
-                         kernel_init=nn.initializers.orthogonal(np.sqrt(2)))(x)
-            x = nn.tanh(x)
-            x = nn.Dense(self.hidden, name=f"{name}_d2", dtype=cdt,
-                         kernel_init=nn.initializers.orthogonal(np.sqrt(2)))(x)
-            return nn.tanh(x)
+            x = jnp.tanh(dense(x, f"{name}_d1", self.compute_dtype))
+            return jnp.tanh(dense(x, f"{name}_d2", self.compute_dtype))
 
-        pi = mlp(obs, "pi")
-        v = mlp(obs, "v")
-        # heads stay f32: action means / values / logits feed log-probs and
-        # the loss, where bf16 resolution would bite
-        value = nn.Dense(1, name="v_out", dtype=jnp.float32,
-                         kernel_init=nn.initializers.orthogonal(1.0))(
-            v.astype(jnp.float32))[..., 0]
+        pi = mlp(obs, "pi").astype(jnp.float32)
+        v = mlp(obs, "v").astype(jnp.float32)
+        value = dense(v, "v_out", jnp.float32)[..., 0]
         if self.continuous:
-            mean = nn.Dense(self.action_dim, name="pi_mean", dtype=jnp.float32,
-                            kernel_init=nn.initializers.orthogonal(0.01))(
-                pi.astype(jnp.float32))
-            log_std = self.param(
-                "log_std", nn.initializers.zeros, (self.action_dim,), jnp.float32
-            )
-            return (mean, log_std), value
-        logits = nn.Dense(self.action_dim, name="pi_logits", dtype=jnp.float32,
-                          kernel_init=nn.initializers.orthogonal(0.01))(
-            pi.astype(jnp.float32))
-        return (logits,), value
+            return (dense(pi, "pi_mean", jnp.float32), p["log_std"]), value
+        return (dense(pi, "pi_logits", jnp.float32),), value
 
 
 # ----------------------------------------------------------------- dists
@@ -184,29 +178,28 @@ def _normal_logp(x, mean, log_std):
 
 
 # ----------------------------------------------------------------- setup
-def make_train_state(
-    env: Env, cfg: PPOConfig, key: jax.Array, params: Optional[EnvParams] = None
-) -> TrainState:
+def make_network(env: Env, cfg) -> ActorCritic:
+    """The actor-critic for ``env`` from a PPOConfig or A2CConfig."""
     continuous = env.config.scheme == "continuous"
-    action_dim = 1 if continuous else env.config.n_actions
-    net = ActorCritic(
-        action_dim=action_dim,
+    return ActorCritic(
+        action_dim=1 if continuous else env.config.n_actions,
         continuous=continuous,
         hidden=cfg.hidden,
         compute_dtype=jnp.dtype(cfg.compute_dtype),
     )
+
+
+def make_train_state(
+    env: Env, cfg: PPOConfig, key: jax.Array, params: Optional[EnvParams] = None
+) -> TrainState:
+    net = make_network(env, cfg)
     obs_dim = env.observation_space.shape[0]
-    obs0 = jnp.zeros((1, obs_dim), jnp.float32)
-    net_params = net.init(key, obs0)
+    net_params = net.init(key, jnp.zeros((1, obs_dim), jnp.float32))
     if cfg.anneal_lr:
         total_updates = cfg.total_iterations * cfg.epochs * cfg.num_minibatches
         schedule = optax.linear_schedule(cfg.lr, 0.0, total_updates)
     else:
         schedule = cfg.lr
-    from gym_fishing_tpu.kernels.ppo_update_kernel import (
-        ADAM_B1, ADAM_B2, ADAM_EPS,
-    )
-
     tx = optax.chain(
         optax.clip_by_global_norm(cfg.max_grad_norm),
         optax.adam(schedule, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS),
@@ -286,6 +279,60 @@ def compute_gae(cfg: PPOConfig, traj: Transition, last_value):
     return advantages, returns
 
 
+# Columns of the packed sample matrix after obs and action.
+PACKED_TAIL = ("logp", "value", "advantage", "return")
+
+
+def build_batch(cfg: PPOConfig, traj: Transition, last_value):
+    """GAE, then one [T*B, C] sample matrix: obs | action | PACKED_TAIL.
+
+    Flattening [T, B] time-major and packing every per-sample field into one
+    matrix lets a single row-gather shuffle the whole dataset. Discrete
+    actions ride as f32 (exact for small n_actions) and are cast back by
+    ``unpack``.
+    """
+    advantages, returns = compute_gae(cfg, traj, last_value)
+
+    def fl2(x):
+        x = x.reshape((-1,) + x.shape[2:])
+        return x[:, None] if x.ndim == 1 else x
+
+    return jnp.concatenate(
+        [fl2(traj.obs), fl2(traj.action.astype(jnp.float32)), fl2(traj.logp),
+         fl2(traj.value), fl2(advantages), fl2(returns)],
+        axis=1,
+    )
+
+
+def unpack(mb, obs_dim: int, continuous: bool):
+    """Split rows of the packed matrix into the ``ppo_loss`` batch tuple."""
+    act_dim = mb.shape[1] - obs_dim - len(PACKED_TAIL)
+    obs = mb[:, :obs_dim]
+    action = mb[:, obs_dim:obs_dim + act_dim]
+    if not continuous:
+        action = action[:, 0].astype(jnp.int32)
+    rest = mb[:, obs_dim + act_dim:]
+    return obs, action, rest[:, 0], rest[:, 1], rest[:, 2], rest[:, 3]
+
+
+def make_perm(cfg: PPOConfig, batch_size: int, key: jax.Array):
+    """A permutation of [0, batch_size) for one epoch (``cfg.shuffle``)."""
+    if cfg.shuffle == "affine":
+        # the bijection i -> (a*i+b) mod N, N a power of two and a odd
+        # (units of Z/2^k are exactly the odd residues). O(1) state, no
+        # sort. uint32 wraparound is exact because N divides 2^32.
+        assert batch_size & (batch_size - 1) == 0, (
+            "shuffle='affine' needs num_envs*num_steps to be a power of 2"
+        )
+        ka, kb = jax.random.split(key)
+        a = jax.random.randint(ka, (), 0, batch_size // 2).astype(
+            jnp.uint32) * 2 + 1
+        b = jax.random.randint(kb, (), 0, batch_size).astype(jnp.uint32)
+        i = jax.lax.iota(jnp.uint32, batch_size)
+        return (a * i + b) & jnp.uint32(batch_size - 1)
+    return jax.random.permutation(key, batch_size)
+
+
 # --------------------------------------------------------------- update
 def ppo_loss(net_apply, params, cfg: PPOConfig, batch, continuous: bool):
     obs, action, old_logp, old_value, adv, ret = batch
@@ -312,6 +359,61 @@ def ppo_loss(net_apply, params, cfg: PPOConfig, batch, continuous: bool):
     }
 
 
+def update(
+    cfg: PPOConfig,
+    ts: TrainState,
+    packed,
+    key: jax.Array,
+    obs_dim: int,
+    continuous: bool,
+):
+    """cfg.epochs of shuffled minibatch SGD over the packed sample matrix.
+
+    Returns the new TrainState and the per-minibatch loss metrics, each of
+    shape [epochs, num_minibatches].
+    """
+    batch_size = packed.shape[0]
+    mb_size = batch_size // cfg.num_minibatches
+
+    def epoch(ts, ep_key):
+        shuffled = jnp.take(
+            packed, make_perm(cfg, batch_size, ep_key), axis=0
+        ).reshape((cfg.num_minibatches, mb_size, packed.shape[1]))
+
+        def minibatch(ts, mb):
+            grad_fn = jax.value_and_grad(
+                lambda p: ppo_loss(
+                    ts.apply_fn, p, cfg, unpack(mb, obs_dim, continuous),
+                    continuous,
+                ),
+                has_aux=True,
+            )
+            (_, metrics), grads = grad_fn(ts.params)
+            return ts.apply_gradients(grads=grads), metrics
+
+        return jax.lax.scan(minibatch, ts, shuffled)
+
+    return jax.lax.scan(epoch, ts, jax.random.split(key, cfg.epochs))
+
+
+def episode_metrics(traj: Transition):
+    """Mean return and length of the episodes that ended in ``traj``."""
+    done_f = traj.done.astype(jnp.float32)
+    n_done = done_f.sum()
+    denom = jnp.maximum(n_done, 1)
+    return {
+        "episode_return": jnp.where(
+            n_done > 0, (traj.episode_return * done_f).sum() / denom, jnp.nan
+        ),
+        "episode_length": jnp.where(
+            n_done > 0,
+            (traj.episode_length.astype(jnp.float32) * done_f).sum() / denom,
+            jnp.nan,
+        ),
+        "mean_reward": traj.reward.mean(),
+    }
+
+
 def train_step(
     env: Env,
     env_params: EnvParams,
@@ -323,174 +425,19 @@ def train_step(
     """One full PPO iteration (rollout + GAE + epochs of minibatch SGD).
 
     Pure and jittable; under a mesh, shard `bstate` on the "envs" axis and
-    replicate `ts` — XLA all-reduces the gradients over ICI automatically.
+    replicate `ts` — XLA inserts the collectives.
     """
     continuous = env.config.scheme == "continuous"
     k_roll, k_perm = jax.random.split(key)
-    batch_size = cfg.num_steps * cfg.num_envs
-    mb_size = batch_size // cfg.num_minibatches
-
-    if cfg.fused_rollout:
-        # Pallas policy-rollout kernel: rollout + GAE + packing in VMEM.
-        if not cfg.fused_update:
-            raise NotImplementedError(
-                "fused_rollout requires fused_update=True"
-            )
-        if env.observation_space.shape != (1,):
-            raise NotImplementedError(
-                "fused_rollout supports scalar observations only"
-            )
-        from gym_fishing_tpu.agents import ppo_fused
-
-        roll, bstate = ppo_fused.fused_rollout_collect(
-            env, env_params, cfg, ts, bstate, k_roll,
-            interpret=jax.default_backend() != "tpu",
-        )
-        packed_t_pre = roll.packed_t
-        roll_stats = roll.stats
-        traj = None
-        obs_dim = act_dim = 1
-    else:
-        bstate, obs_last, traj, last_value = collect_rollout(
-            env, env_params, cfg, ts, bstate, k_roll
-        )
-        advantages, returns = compute_gae(cfg, traj, last_value)
-
-        # flatten [T, B] -> [T*B] and pack all per-sample fields into ONE
-        # [N, C] matrix: a single row-gather shuffles the whole dataset.
-        # Gathering six separate 1-D arrays was ~20x slower on TPU
-        # (element-granularity random HBM access dominates the train step);
-        # one 2-D row gather is coalesced. Discrete actions ride as f32
-        # (exact for small n_actions) and are cast back after the split.
-        def fl2(x):
-            x = x.reshape((-1,) + x.shape[2:])
-            return x[:, None] if x.ndim == 1 else x
-
-        obs2 = fl2(traj.obs)
-        act2 = fl2(traj.action.astype(jnp.float32))
-        obs_dim = obs2.shape[1]
-        act_dim = act2.shape[1]
-        packed = jnp.concatenate(
-            [obs2, act2, fl2(traj.logp), fl2(traj.value), fl2(advantages),
-             fl2(returns)],
-            axis=1,
-        )
-        packed_t_pre = None
-        roll_stats = None
-
-    def unpack(mb):
-        obs = mb[:, :obs_dim]
-        action = mb[:, obs_dim:obs_dim + act_dim]
-        if not continuous:
-            action = action[:, 0].astype(jnp.int32)
-        rest = mb[:, obs_dim + act_dim:]
-        return obs, action, rest[:, 0], rest[:, 1], rest[:, 2], rest[:, 3]
-
-    def make_perm(ep_key):
-        if cfg.shuffle == "affine":
-            # full permutation of [0, N) as the bijection i -> (a*i+b) mod N,
-            # N a power of two and a odd (units of Z/2^k are exactly the odd
-            # residues). O(1) state, no sort: ~10 ms/epoch cheaper than
-            # jax.random.permutation at N=2^21 on v5e. uint32 wraparound is
-            # exact because N divides 2^32.
-            assert batch_size & (batch_size - 1) == 0, (
-                "shuffle='affine' needs num_envs*num_steps to be a power of 2"
-            )
-            ka, kb = jax.random.split(ep_key)
-            a = jax.random.randint(ka, (), 0, batch_size // 2).astype(
-                jnp.uint32) * 2 + 1
-            b = jax.random.randint(kb, (), 0, batch_size).astype(jnp.uint32)
-            i = jax.lax.iota(jnp.uint32, batch_size)
-            return (a * i + b) & jnp.uint32(batch_size - 1)
-        return jax.random.permutation(ep_key, batch_size)
-
-    if cfg.fused_update:
-        # Pallas fused-update path (kernels/ppo_update_kernel.py): the whole
-        # minibatch gradient is one kernel; Adam/clipping stay in optax.
-        # Shuffling is ZERO-COPY: minibatches are random sets of data tiles
-        # named by a scalar-prefetched tile permutation driving the kernel's
-        # BlockSpec — no random.permutation sort, no HBM row-gather (together
-        # those measured ~20 ms/epoch at N=2^21, more than the grad math).
-        # A tile is `tile` consecutive samples = a block of envs at one
-        # timestep (the [T, B] flatten is time-major and B >= tile); env
-        # instances are iid, so tile-granular shuffling loses nothing.
-        # Discrete envs use the kernel's categorical head: the class index
-        # rides the packed buffer as one f32 column (exact for small
-        # n_actions); act_dim passed to the kernel is the logits width.
-        from gym_fishing_tpu.agents import ppo_fused
-
-        head = "gaussian" if continuous else "categorical"
-        kern_act_dim = act_dim if continuous else env.config.n_actions
-        interpret = jax.default_backend() != "tpu"  # Mosaic interp off-TPU
-        if packed_t_pre is not None:       # fused rollout already emitted it
-            packed_t = packed_t_pre
-        else:
-            packed_t = ppo_fused.pack_feature_major(packed)  # [C', N], once
-        if cfg.fused_adam:
-            ts, metrics = ppo_fused.fused_epoch_scan_adam(
-                cfg, ts, packed_t, obs_dim, kern_act_dim, k_perm, head=head,
-                interpret=interpret
-            )
-        else:
-            ts, metrics = ppo_fused.fused_epoch_scan(
-                cfg, ts, packed_t, obs_dim, kern_act_dim, k_perm, head=head,
-                interpret=interpret
-            )
-
-    else:
-
-        def epoch(carry, ep_key):
-            ts = carry
-            shuffled = jnp.take(packed, make_perm(ep_key), axis=0).reshape(
-                (cfg.num_minibatches, mb_size, packed.shape[1])
-            )
-
-            def minibatch(ts, mb):
-                grad_fn = jax.value_and_grad(
-                    lambda p: ppo_loss(
-                        ts.apply_fn, p, cfg, unpack(mb), continuous
-                    ),
-                    has_aux=True,
-                )
-                (loss, metrics), grads = grad_fn(ts.params)
-                ts = ts.apply_gradients(grads=grads)
-                return ts, metrics
-
-            ts, metrics = jax.lax.scan(minibatch, ts, shuffled)
-            return ts, metrics
-
-        ep_keys = jax.random.split(k_perm, cfg.epochs)
-        ts, metrics = jax.lax.scan(epoch, ts, ep_keys)
-
+    bstate, _, traj, last_value = collect_rollout(
+        env, env_params, cfg, ts, bstate, k_roll
+    )
+    packed = build_batch(cfg, traj, last_value)
+    ts, metrics = update(
+        cfg, ts, packed, k_perm, env.observation_space.shape[0], continuous
+    )
     metrics = jax.tree.map(lambda x: x.mean(), metrics)
-
-    if roll_stats is not None:
-        # episode stats were accumulated in-kernel (SMEM sums):
-        # [n_done, sum ep_ret@done, sum ep_len@done, sum reward]
-        n_done = roll_stats[0]
-        denom = jnp.maximum(n_done, 1.0)
-        metrics["episode_return"] = jnp.where(
-            n_done > 0, roll_stats[1] / denom, jnp.nan
-        )
-        metrics["episode_length"] = jnp.where(
-            n_done > 0, roll_stats[2] / denom, jnp.nan
-        )
-        metrics["mean_reward"] = roll_stats[3] / batch_size
-    else:
-        done_f = traj.done.astype(jnp.float32)
-        n_done = done_f.sum()
-        metrics["episode_return"] = jnp.where(
-            n_done > 0,
-            (traj.episode_return * done_f).sum() / jnp.maximum(n_done, 1),
-            jnp.nan,
-        )
-        metrics["episode_length"] = jnp.where(
-            n_done > 0,
-            (traj.episode_length.astype(jnp.float32) * done_f).sum()
-            / jnp.maximum(n_done, 1),
-            jnp.nan,
-        )
-        metrics["mean_reward"] = traj.reward.mean()
+    metrics.update(episode_metrics(traj))
     return ts, bstate, metrics
 
 

@@ -7,14 +7,14 @@ latent growth model (mixture variant), or track the drifting productivity of
 the non-stationary env. The reference has no learner of its own (sb3
 RecurrentPPO fills this role externally; reconstructed).
 
-TPU shape of the algorithm:
+Shape of the algorithm on device:
 - Collection is the same single `lax.scan` as `agents/ppo.py`, with the
   hidden state as one more carry leaf, where-select reset to the initial
   hidden on episode end (no `lax.cond` divergence under vmap).
 - The update replays whole [T, B_mb] sequences through the GRU under
   `lax.scan` (truncated BPTT over the rollout segment) — minibatches cut
   across the *env* axis only, never across time, so the recurrence stays
-  intact. Sequence replay is resequenced matmuls on the MXU; nothing here is
+  intact. Sequence replay is batched matmuls on device; nothing here is
   scalar or host-side.
 - GAE, the clipped PPO loss, and the distributions are shared with
   `agents/ppo.py`.
@@ -25,18 +25,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.training.train_state import TrainState
 
+from gym_fishing_tpu.agents._flax import nn
 from gym_fishing_tpu.agents.ppo import (
     action_logp_entropy,
     compute_gae,
     sample_action,
 )
+from gym_fishing_tpu.agents.train_state import TrainState
 from gym_fishing_tpu.batch import BatchState, batched_reset, batched_step
 from gym_fishing_tpu.core.env import Env
 from gym_fishing_tpu.core.types import EnvParams

@@ -2,7 +2,7 @@
 
 The reference's published experiments train sb3 agents (PPO/SAC/TD3-family)
 on these envs (reference: README + lab usage; reconstructed, SURVEY.md §3.5).
-This provides the off-policy member of that family, TPU-native: the replay
+This provides the off-policy member of that family, on device: the replay
 buffer is a set of pre-allocated device arrays (no host round-trips — insert
 is a wrapped dynamic scatter of the vectorized envs' transitions, sampling a
 uniform row-gather), and one `train_step` = one batched env step + K critic/
@@ -17,13 +17,13 @@ import dataclasses
 from functools import partial
 from typing import Any, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.training.train_state import TrainState
 
+from gym_fishing_tpu.agents._flax import nn
+from gym_fishing_tpu.agents.train_state import TrainState
 from gym_fishing_tpu.batch import BatchState, batched_reset, batched_step
 from gym_fishing_tpu.core.env import Env
 from gym_fishing_tpu.core.types import EnvParams

@@ -14,14 +14,14 @@ import dataclasses
 from functools import partial
 from typing import Any, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.training.train_state import TrainState
 
+from gym_fishing_tpu.agents._flax import nn
 from gym_fishing_tpu.agents.sac import DoubleCritic, ReplayBuffer, buffer_add, buffer_init, buffer_sample
+from gym_fishing_tpu.agents.train_state import TrainState
 from gym_fishing_tpu.batch import batched_reset, batched_step
 from gym_fishing_tpu.core.env import Env
 from gym_fishing_tpu.core.types import EnvParams

@@ -6,7 +6,7 @@ reps)` and `estimate_policyfn(env, model, reps, n)` (reconstructed — SURVEY.md
 columns ``[time, state, action, reward, rep]`` (state is the *unscaled*
 stock; action is the raw env action).
 
-TPU-native twist: instead of a per-step Python loop over one env, all `reps`
+On-device twist: instead of a per-step Python loop over one env, all `reps`
 run as a vmapped batch; if the model exposes a pure ``act`` function (our
 baseline policies do) the whole simulation is one jitted lax.scan and only the
 final trajectory buffer crosses to the host. Models exposing only `.predict`

@@ -101,7 +101,7 @@ def batched_step(
         # Done instances observe the (noise-free) reset state; everyone else
         # keeps the step's own obs so measurement noise (sigma_m) reaches the
         # policy — re-deriving obs for all envs via get_obs would silently
-        # strip the obs-noise variants' noise from training (VERDICT r2 #4).
+        # strip the obs-noise variants' noise from training.
         reset_obs = jax.vmap(env.get_obs, in_axes=(None, 0))(
             params, reset_state.env
         )

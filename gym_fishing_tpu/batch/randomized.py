@@ -1,7 +1,7 @@
 """Per-instance / per-episode parameter randomization (model uncertainty).
 
 The reference hints at a model/parameter-uncertainty variant (SURVEY.md §2.1:
-env sampling dynamics parameters per episode, TBV). The TPU-native
+env sampling dynamics parameters per episode, TBV). The on-device
 generalization: EnvParams is a pytree, so a *batched* params record (leaves
 shaped [num_envs]) rides through vmap exactly like state — every instance can
 run different (r, K, sigma, ...) and auto-reset resamples that instance's

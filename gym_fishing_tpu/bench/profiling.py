@@ -16,8 +16,9 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/gym_fishing_tpu_trace"):
-    """Capture a device trace viewable in TensorBoard / Perfetto."""
+def trace(logdir: str):
+    """Capture a device trace into ``logdir``, viewable in TensorBoard /
+    Perfetto."""
     jax.profiler.start_trace(logdir)
     try:
         yield logdir

@@ -4,9 +4,9 @@ BASELINE.md's second north star is >=90% efficiency from 1 to 4 hosts. Env
 shards never communicate (embarrassingly parallel), so rollout scaling is
 limited only by SPMD dispatch overhead; PPO adds one gradient all-reduce per
 minibatch. This harness measures weak-scaling efficiency on whatever devices
-exist: the real pod slice in production, the 8-virtual-CPU-device mesh in CI
-(only one physical TPU chip is attached to this container — multi-chip runs
-use the same code path via jax.distributed + a bigger mesh).
+exist: the cards of a host (or several hosts through jax.distributed) in
+production, the 8-virtual-CPU-device mesh in the tests, where the numbers
+measure core contention, not an interconnect.
 """
 
 from __future__ import annotations
@@ -45,13 +45,17 @@ def _throughput(env, params, pol, num_envs, num_steps, iters, mesh) -> float:
         out = run(state, sub)
         jax.block_until_ready(out)
         state = out[0]
-    t0 = time.perf_counter()
+    # the fastest of ``iters`` timed calls: on a shared host a slow call says
+    # more about the neighbours than about the program
+    best = float("inf")
     for _ in range(iters):
         key, sub = jax.random.split(key)
+        t0 = time.perf_counter()
         out = run(state, sub)
         jax.block_until_ready(out)
+        best = min(best, time.perf_counter() - t0)
         state = out[0]
-    return num_envs * num_steps * iters / (time.perf_counter() - t0)
+    return num_envs * num_steps / best
 
 
 def weak_scaling(
@@ -76,8 +80,8 @@ def weak_scaling(
     results = {}
     for n in device_counts:
         mesh = make_mesh(devices=devices[:n])
-        tput = _throughput(env, params, pol, envs_per_device * n, num_steps, iters, mesh)
-        results[n] = tput
+        results[n] = _throughput(env, params, pol, envs_per_device * n,
+                                 num_steps, iters, mesh)
     base = results[device_counts[0]] / device_counts[0]
     return {
         "throughput": results,

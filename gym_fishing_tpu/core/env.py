@@ -3,7 +3,7 @@
 This replaces the reference's stateful `gym.Env.step/reset` (reference:
 gym_fishing/envs/base_fishing_env.py — step, reset, harvest_draw,
 population_draw; reconstructed, ORACLE_SEMANTICS.md pins the semantics) with
-the TPU-native protocol demanded by BASELINE.json:
+the on-device protocol demanded by BASELINE.json:
 
     step(params, state, action, key) -> (state', TimeStep)
 
@@ -19,8 +19,7 @@ Three entry points, layered:
 
 Everything here is branch-free elementwise math: under jit+vmap the whole
 step fuses into one XLA kernel (the "moral native component" of SURVEY.md
-§2.2); a hand-written Pallas rollout kernel lives in
-``gym_fishing_tpu.kernels`` for the perf tier.
+§2.2).
 """
 
 from __future__ import annotations

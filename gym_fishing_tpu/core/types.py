@@ -1,9 +1,9 @@
-"""Core pytree types for the TPU-native fishing environment engine.
+"""Core pytree types for the on-device fishing environment engine.
 
 Design (SURVEY.md §7.1): the reference keeps all state as mutable Python
 attributes on a gym.Env instance (reference: gym_fishing/envs/
 base_fishing_env.py — self.fish_population / self.harvest / self.years_passed).
-The TPU-native design inverts that: state is an explicit, immutable pytree
+The on-device design inverts that: state is an explicit, immutable pytree
 threaded through pure functions, so the whole MDP jit-compiles, vmaps over a
 leading [num_envs] axis, and shards over a device mesh.
 
@@ -16,7 +16,7 @@ Two kinds of configuration, split deliberately:
 - ``EnvParams`` — *dynamic* (pytree of array leaves): every numeric rate and
   bound. One compiled step serves any parameter values, and params themselves
   can be vmapped for parameter sweeps / domain randomization. The computation
-  dtype follows the dtype of these leaves (float32 on TPU; float64 on CPU for
+  dtype follows the dtype of these leaves (float32 on the accelerator; float64 on CPU for
   the exactness harness).
 """
 

@@ -6,7 +6,7 @@ subclasses; reconstructed — reference mount empty).
 
 Every function maps (params, post-harvest stock x) -> deterministic next
 stock, elementwise, with no data-dependent control flow, so the whole family
-fuses into a single XLA/Pallas kernel under jit+vmap.
+fuses into a single XLA kernel under jit+vmap.
 """
 
 from __future__ import annotations

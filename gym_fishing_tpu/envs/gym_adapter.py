@@ -3,7 +3,7 @@
 A user of the reference interacts with a mutable `gym.Env` (reference:
 gym_fishing/envs/base_fishing_env.py — reset/step/render/simulate/plot plus
 attributes fish_population / harvest / years_passed; reconstructed). This
-adapter reproduces that surface 1:1 on top of the pure TPU engine: it owns an
+adapter reproduces that surface 1:1 on top of the pure JAX engine: it owns an
 ``EnvState`` + JAX key, steps through a jitted closure, and exposes numpy in
 / numpy out. Single-instance and eager by design — the batched/scan engine in
 ``gym_fishing_tpu.batch`` is the performance path; this is the compatibility

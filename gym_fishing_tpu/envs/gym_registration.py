@@ -14,7 +14,7 @@ installed (it is not in this image — gymnasium only), importing this module
 is a no-op and `register_with_gym()` reports False.
 
 The returned env is a `LegacyGymFishingEnv`: the old 4-tuple step API
-(`obs, reward, done, info`) over the same TPU engine, matching the
+(`obs, reward, done, info`) over the same JAX engine, matching the
 reference's pre-gymnasium behavior exactly (the reference predates the
 terminated/truncated split).
 """

@@ -3,7 +3,7 @@
 The reference registers its envs with OpenAI gym so users write
 `gym.make("fishing-v1")` (reference: gym_fishing/__init__.py; reconstructed).
 This module provides the modern equivalent: a `gymnasium.Env` subclass over
-the TPU engine with the terminated/truncated split (terminated = stock
+the JAX engine with the terminated/truncated split (terminated = stock
 collapse, truncated = Tmax horizon), registered under both
 "gym_fishing_tpu/<id>" and plain "<id>" for every id in our registry, so
 

@@ -1,4 +1,4 @@
-"""gymnasium.vector.VectorEnv adapter over the batched TPU engine.
+"""gymnasium.vector.VectorEnv adapter over the batched JAX engine.
 
 The reference has no vector API at all (SURVEY.md §2.4 — not even gym's
 SyncVectorEnv is used). This adapter exposes the jit+vmap engine through the

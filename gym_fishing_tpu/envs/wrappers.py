@@ -7,7 +7,7 @@ mixture, and the non-stationary drift env are all partially observed, and a
 k-step window is the standard non-recurrent remedy. The reference has no
 such wrapper (its sb3 users reached for external `VecFrameStack`;
 reconstructed); here it is a first-class functional env so it composes with
-the whole TPU stack: the wrapper implements the same pure protocol as
+the whole JAX stack: the wrapper implements the same pure protocol as
 ``core.env.Env`` (`reset` / `step` / `step_xi` / `get_obs`), so vmap
 batching, auto-reset, `lax.scan` rollouts, mesh sharding and every learner
 work on it unchanged.

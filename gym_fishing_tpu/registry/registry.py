@@ -62,7 +62,7 @@ def make(env_id: str, dtype=jnp.float32, **overrides) -> Tuple[Env, EnvParams]:
 
     Static overrides (growth, noise_form, scheme, n_actions) rebuild the
     EnvConfig; everything else overrides EnvParams fields. Params are returned
-    cast to `dtype` (float32 for TPU, float64 for the CPU exactness harness).
+    cast to `dtype` (float32 for the accelerator, float64 for the CPU exactness harness).
     """
     if env_id not in _REGISTRY:
         raise ValueError(f"unknown env id {env_id!r}; known: {registered_ids()}")

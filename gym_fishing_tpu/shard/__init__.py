@@ -11,3 +11,4 @@ from gym_fishing_tpu.shard.mesh import (
     shard_batch,
     state_checksum,
 )
+from gym_fishing_tpu.shard.check import compare_sharded

@@ -2,13 +2,14 @@
 
 The reference has no parallelism of any kind (single Python process; SURVEY.md
 §2.4 "reference: none exist"). This module is the build-side equivalent of a
-distributed runtime, TPU-native:
+distributed runtime, on device:
 
 - env instances shard over a 1-D ``("envs",)`` mesh (embarrassingly parallel
   — env shards never communicate);
-- learner parameters are replicated; the PPO gradient all-reduce is inserted
-  by XLA from the sharding annotations and rides ICI within a slice / DCN
-  across slices;
+- learner parameters are replicated; XLA inserts the collectives from the
+  sharding annotations (NCCL between the GPUs of a host and across hosts).
+  For PPO it currently all-gathers the trajectory and runs the whole update
+  on every device;
 - multi-host entry is standard SPMD: `jax.distributed.initialize()`, one
   process per host, every process runs the same jitted program.
 
@@ -47,16 +48,15 @@ def is_distributed_initialized() -> bool:
 def distributed_init(**kwargs) -> None:
     """Multi-host SPMD entry: call once per host process BEFORE any device use.
 
-    Thin wrapper over `jax.distributed.initialize` — no NCCL/MPI analog
-    exists or is needed; XLA collectives over ICI/DCN are the comms backend.
+    Thin wrapper over `jax.distributed.initialize` — XLA's collectives are
+    the comms backend; no MPI layer is needed.
     No-op when already initialized or when no coordinator is configured
     (single-host). Must run before anything touches the backend (including
     `jax.devices()` / `jax.process_count()`).
 
     kwargs: `coordinator_address`, `num_processes`, `process_id` (all
-    forwarded); coordinator may also come from $JAX_COORDINATOR. On cloud TPU
-    pods, calling with no kwargs lets JAX autodetect the cluster iff
-    $JAX_COORDINATOR is set as a hint that a cluster exists.
+    forwarded); coordinator may also come from $JAX_COORDINATOR. Nothing is
+    autodetected: without a coordinator this is single-host.
     """
     if is_distributed_initialized():
         return

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""SURVEY.md §9 re-verification hook (VERDICT r1 next-step #5).
+"""SURVEY.md §9 re-verification hook.
 
 Every load-bearing semantic of this rebuild is PINNED in ORACLE_SEMANTICS.md
 because `/root/reference/` was EMPTY at survey time. This script is the

@@ -1,5 +1,5 @@
-"""Packaging for gym_fishing_tpu (pure-Python + Pallas kernels; reference
-parity: gym_fishing's setup.py, reconstructed — SURVEY.md §2.1)."""
+"""Packaging for gym_fishing_tpu (pure Python on JAX; reference parity:
+gym_fishing's setup.py, reconstructed — SURVEY.md §2.1)."""
 
 from setuptools import find_packages, setup
 
@@ -7,8 +7,8 @@ setup(
     name="gym_fishing_tpu",
     version="0.1.0",
     description=(
-        "TPU-native vectorized fisheries-management RL environments "
-        "(gym_fishing rebuilt on JAX/XLA/Pallas)"
+        "Vectorized fisheries-management RL environments and learners "
+        "(gym_fishing rebuilt on JAX/XLA)"
     ),
     author="gym_fishing_tpu developers",
     license="MIT",
@@ -17,13 +17,15 @@ setup(
     install_requires=[
         "jax",
         "numpy",
-        "pandas",
+        "optax",
+        "pandas",        # analysis: simulate/plot helpers
         "matplotlib",
     ],
     extras_require={
-        "learn": ["flax", "optax"],
+        "flax": ["flax"],               # DQN, SAC, TD3, ES, recurrent PPO
         "gym": ["gymnasium"],
         "ckpt": ["orbax-checkpoint"],   # optional backend; npz is built in
-        "test": ["pytest"],
+        "test": ["pytest", "pytest-xdist", "flax", "gymnasium",
+                 "orbax-checkpoint"],
     },
 )

@@ -7,7 +7,7 @@ Launched N times by tests/test_multihost.py, each as a SEPARATE OS process:
 
 Each process owns `local_devices` virtual CPU devices; `jax.distributed.initialize` wires
 them into one 2N-device SPMD program with gloo CPU collectives (the CPU
-stand-in for XLA collectives over ICI — SURVEY.md §2.4 multi-host row).
+stand-in for the GPU's collectives — SURVEY.md §2.4 multi-host row).
 It then runs the real multi-host recipe from examples/multihost_train.py —
 replicated learner params, per-host env slice assembled via
 `host_local_to_global` — for two PPO train steps and prints one JSON line of
@@ -84,33 +84,19 @@ def main() -> None:
         "loss": float(metrics["loss"]),
     }
 
-    # Fused shard_map composition across the same real process boundary
-    # (VERDICT r3 #4): the explicit psum/pmean path of shard/fused_ppo.py
-    # (Mosaic-interpreted on the CPU mesh) must agree bitwise across
-    # processes and match a single-process run — the same proof the
-    # XLA/GSPMD path got above. Gloo carries the psums across processes.
-    from gym_fishing_tpu.shard.fused_ppo import make_sharded_fused_train_step
-
-    fcfg = PPOConfig(
-        num_envs=512, num_steps=8, epochs=2, num_minibatches=2, hidden=16,
-        fused_update=True, fused_rollout=True,
-    )
-    fts = replicate(make_train_state(env, fcfg, key), mesh)
-    flocal = fcfg.num_envs // jax.process_count()
-    fb = host_local_to_global(batched_reset(env, params, flocal), mesh)
-    # hlo_interpret: the Mosaic interpreter deadlocks across OS processes
-    # (its callback machinery never completes under multi-controller
-    # execution); the generic-interpreter tier runs the same kernels with
-    # the same zero-bit PRNG semantics and is multi-process-safe.
-    fstep = jax.jit(make_sharded_fused_train_step(
-        env, params, fcfg, mesh, hlo_interpret=True
-    ))
-    for it in range(2):
-        fts, fb, fmetrics = fstep(fts, fb, jax.random.fold_in(key, 10 + it))
-    out["fused_params_checksum"] = float(state_checksum(fts.params))
-    out["fused_state_checksum"] = float(state_checksum(fb.env))
-    out["fused_loss"] = float(fmetrics["loss"])
-    out["fused_pg_loss"] = float(fmetrics["pg_loss"])
+    # The same global batch on one device of this process: the sharded
+    # iterations above must reproduce it (env state bitwise, params within
+    # the all-reduce reordering tolerance).
+    if jax.process_count() == 1:
+        dev = jax.devices()[0]
+        with jax.default_device(dev):
+            ts1 = make_train_state(env, cfg, key)
+            b1 = batched_reset(env, params, global_envs)
+            for it in range(2):
+                ts1, b1, m1 = step(ts1, b1, jax.random.fold_in(key, it))
+        out["single_device_params_checksum"] = float(state_checksum(ts1.params))
+        out["single_device_state_checksum"] = float(state_checksum(b1.env))
+        out["single_device_loss"] = float(m1["loss"])
 
     print("RESULT " + json.dumps(out), flush=True)
 

@@ -64,7 +64,7 @@ def test_policies_on_discrete_relative_env():
 
 def test_estimate_policyfn_relative_scheme_uses_carried_harvest():
     """For the relative decode the policy function is conditional on the
-    carried harvest (VERDICT r1 weak #7: it was silently evaluated at
+    carried harvest (it was once silently evaluated at
     init_harvest with state=None, which for predict() meant a scalar
     broadcast, not a per-grid-point harvest)."""
     env, params = gft.make("fishing-v0", sigma=0.0)
@@ -85,7 +85,7 @@ def test_estimate_policyfn_relative_scheme_uses_carried_harvest():
 
 def test_env_file_logging_writes_tidy_csv(tmp_path):
     """Reference surface: env ctor file= path writes one row per step
-    (SURVEY §5.5; VERDICT r1 missing #4)."""
+    (SURVEY §5.5)."""
     import pandas as pd
 
     path = tmp_path / "episode.csv"

@@ -52,7 +52,7 @@ def test_autoreset_resets_done_instances():
 def test_autoreset_keeps_measurement_noise_on_live_instances():
     """With sigma_m > 0, the obs returned by batched_step(autoreset=True)
     must keep each live instance's noisy measurement (the policy trains on
-    it — VERDICT r2 weak #4); only done instances observe the reset state."""
+    it); only done instances observe the reset state."""
     env, params = gft.make(
         "fishing-v1", dtype=jnp.float64, sigma=0.0, sigma_m=0.3, Tmax=5
     )
@@ -172,8 +172,7 @@ def test_mixture_growth_model_uncertainty():
 
 def test_engine_rbg_keys_match_threefry_distributionally():
     """The engine is key-impl-agnostic: jax.random.key(seed, impl="rbg")
-    (XLA RngBitGenerator — the 2.15x engine fast path, BENCH_NOTES Round 4e)
-    must produce the same trajectory DISTRIBUTION as threefry at matched
+    (XLA's RngBitGenerator) must produce the same trajectory DISTRIBUTION as threefry at matched
     (B, T, sigma), though not the same streams."""
     import gym_fishing_tpu as gft
     from gym_fishing_tpu.batch import batched_reset, batched_step

@@ -2,7 +2,7 @@
 must produce sane numbers and the trajectory-storing variant must work."""
 
 import gym_fishing_tpu  # noqa: F401
-from gym_fishing_tpu.bench.throughput import BASELINE_STEPS_PER_S, measure
+from gym_fishing_tpu.bench.throughput import measure
 from gym_fishing_tpu.bench.profiling import time_fn
 
 import jax
@@ -10,10 +10,10 @@ import jax.numpy as jnp
 
 
 def test_measure_xla_tiny():
-    res = measure(num_envs=64, num_steps=8, iters=2, warmup=1, mode="xla")
+    res = measure(num_envs=64, num_steps=8, iters=2, warmup=1)
     assert res["steps_per_s"] > 0
-    assert res["vs_baseline"] == res["steps_per_s"] / BASELINE_STEPS_PER_S
-    assert res["mode"] == "xla"
+    assert res["steps_per_s"] == res["num_envs"] * res["num_steps"] * 2 / res["seconds"]
+    assert "vs_baseline" not in res
 
 
 def test_measure_store_trajectory():
@@ -24,8 +24,7 @@ def test_measure_store_trajectory():
 def test_weak_scaling_functional_on_virtual_mesh():
     """weak_scaling runs on the 8-virtual-device mesh and returns a sane
     curve (functional check only: virtual devices share 2 physical cores, so
-    efficiency here measures core contention, not interconnect — see
-    BENCH_NOTES.md 'Scaling')."""
+    efficiency here measures core contention, not interconnect)."""
     from gym_fishing_tpu.bench.scaling import weak_scaling
 
     res = weak_scaling(
@@ -44,26 +43,50 @@ def test_time_fn():
 
 
 def test_measure_ppo_train_fast_tier_tiny():
-    """The bench fast tier (bfloat16 + fused_adam plumbing) exercises the
-    same code path bench.py records as ppo_bf16_steps_per_s; fused='off'
-    keeps it runnable on CPU."""
+    """The bfloat16 compute option reaches the timed PPO train step."""
     from gym_fishing_tpu.bench.throughput import measure_ppo_train
 
     res = measure_ppo_train(
-        num_envs=64, num_steps=8, iters=1, warmup=1, fused="off",
-        compute_dtype="bfloat16",
+        num_envs=64, num_steps=8, iters=1, warmup=1, compute_dtype="bfloat16",
     )
     assert res["steps_per_s"] > 0
     assert res["compute_dtype"] == "bfloat16"
-    assert res["mode"] == "ppo-off"
 
 
-def test_bench_floor_skip_requires_both_ends_degraded():
-    """The regression-gate skip predicate (VERDICT r4 #1): a healthy health
-    control at EITHER end of the run keeps the perf floors armed; only a
-    run degraded at both ends skips them."""
+def test_measure_ppo_train_inherits_chain_shortening_defaults():
+    """measure_ppo_train takes no option of its own beyond sizes and timing:
+    every other PPOConfig field keeps its default, so the bench measures the
+    configuration users get."""
+    import inspect
+
+    from gym_fishing_tpu.agents.ppo import PPOConfig
+    from gym_fishing_tpu.bench.throughput import measure_ppo_train
+
+    sig = inspect.signature(measure_ppo_train)
+    assert set(sig.parameters) == {
+        "num_envs", "num_steps", "iters", "warmup", "sigma", "cfg_overrides",
+    }
+    res = measure_ppo_train(num_envs=32, num_steps=8, iters=1, warmup=1)
+    cfg = PPOConfig()
+    for k in ("compute_dtype", "shuffle", "epochs", "num_minibatches"):
+        assert res[k] == getattr(cfg, k), k
+
+
+def test_measure_rng_impl_rbg_tiny():
+    res = measure(num_envs=64, num_steps=8, iters=2, warmup=1, rng_impl="rbg")
+    assert res["steps_per_s"] > 0
+    assert res["rng_impl"] == "rbg"
+
+
+def test_bench_refuses_to_run_without_gpu(capsys):
+    """bench.py fails on a machine without a GPU instead of reporting CPU
+    numbers, and prints no result line."""
     import importlib.util
     import os
+
+    import pytest
+
+    from gym_fishing_tpu.device import DeviceUnavailable
 
     spec = importlib.util.spec_from_file_location(
         "bench_main",
@@ -72,36 +95,6 @@ def test_bench_floor_skip_requires_both_ends_degraded():
     )
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
-
-    assert bench._floors_skipped(500.0, 300.0) is True     # r04-style sick run
-    assert not bench._floors_skipped(500.0, 2.1)           # transient pre blip
-    assert not bench._floors_skipped(2.1, 500.0)           # degraded at exit
-    assert not bench._floors_skipped(2.1, 2.0)             # healthy
-    assert not bench._floors_skipped(None, None)           # CPU run
-    assert not bench._floors_skipped(500.0, None)
-
-
-def test_measure_ppo_train_inherits_chain_shortening_defaults():
-    """Regression pin for the round-5 bench bug: measure-side False defaults
-    silently overrode PPOConfig's chain-shortening defaults, so the bench
-    artifact measured a non-default configuration while labeling it default.
-    The knobs must default to None (= inherit) and the PPOConfig defaults
-    must be the round-5 decision (pregen+fold ON, vector_gae OFF)."""
-    import inspect
-
-    from gym_fishing_tpu.bench.throughput import measure_ppo_train
-    from gym_fishing_tpu.agents.ppo import PPOConfig
-
-    sig = inspect.signature(measure_ppo_train)
-    for p in ("pregen_noise", "fold_obs", "vector_gae"):
-        assert sig.parameters[p].default is None, p
-    cfg = PPOConfig()
-    assert cfg.rollout_pregen_noise and cfg.rollout_fold_obs
-    assert not cfg.rollout_vector_gae
-
-
-def test_measure_rng_impl_rbg_tiny():
-    res = measure(num_envs=64, num_steps=8, iters=2, warmup=1, mode="xla",
-                  rng_impl="rbg")
-    assert res["steps_per_s"] > 0
-    assert res["rng_impl"] == "rbg"
+    with pytest.raises(DeviceUnavailable):
+        bench.main()
+    assert capsys.readouterr().out == ""

@@ -135,7 +135,7 @@ def test_reward_shaping_exactness():
 
 
 def test_float32_tolerance():
-    """The TPU dtype path (f32) stays within loose tolerance of the oracle."""
+    """The accelerator dtype path (f32) stays within loose tolerance of the oracle."""
     cfg = orc.OracleConfig(growth="logistic", scheme="continuous", sigma=0.1)
     actions, xis, etas = make_streams(cfg, 30, seed=17)
     env = gft.make_env("f32", growth="logistic", scheme="continuous")

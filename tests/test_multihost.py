@@ -1,4 +1,4 @@
-"""TRUE multi-process SPMD test (VERDICT r1 next-step #1).
+"""TRUE multi-process SPMD test.
 
 The single-process virtual-device mesh tests (test_shard.py) can't catch
 multi-host bugs like device_put onto non-addressable devices or a broken
@@ -67,21 +67,21 @@ def test_two_process_spmd_matches_single_process():
     assert [r["num_processes"] for r in two] == [2, 2]
     assert all(r["num_devices"] == 4 for r in two)
 
-    # both processes of the SPMD program must agree bitwise — for the
-    # XLA/GSPMD train step AND the fused shard_map composition (VERDICT r3
-    # #4: the fused path's first proof across a real process boundary)
-    for k in ("params_checksum", "state_checksum", "mean_reward", "loss",
-              "fused_params_checksum", "fused_state_checksum", "fused_loss",
-              "fused_pg_loss"):
+    # both processes of the SPMD program must agree bitwise
+    for k in ("params_checksum", "state_checksum", "mean_reward", "loss"):
         assert two[0][k] == two[1][k], f"{k} diverged across processes"
 
     # and the result must match a single-process run on the same 4-device mesh
     one = _run_workers(num_processes=1, local_devices=4)[0]
     assert one["num_devices"] == 4
-    for k in ("params_checksum", "state_checksum", "mean_reward", "loss",
-              "fused_params_checksum", "fused_state_checksum", "fused_loss",
-              "fused_pg_loss"):
+    for k in ("params_checksum", "state_checksum", "mean_reward", "loss"):
         np.testing.assert_allclose(
             two[0][k], one[k], rtol=1e-5, atol=1e-6,
             err_msg=f"{k}: 2-process vs single-process mismatch",
+        )
+    # and the sharded run must match the same global batch on one device
+    for k in ("params_checksum", "state_checksum", "loss"):
+        np.testing.assert_allclose(
+            one[f"single_device_{k}"], one[k], rtol=1e-5, atol=1e-6,
+            err_msg=f"{k}: sharded vs single-device mismatch",
         )
